@@ -1,7 +1,7 @@
 """Golden scalar model — the differential-testing oracle.
 
 A deliberately literal, readable Python implementation of the reference
-mapping semantics, used to validate the TPU device pipeline (the reference
+mapping semantics, used to validate the device pipeline (the reference
 binary itself cannot be built here: its htslib submodule isn't vendored).
 Every function cites the reference behavior it reproduces. This module is
 *not* on the performance path.

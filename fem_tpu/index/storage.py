@@ -39,7 +39,7 @@ class FemIndex:
 
     def split_sid_pos(self) -> tuple[np.ndarray, np.ndarray]:
         """Occurrence table as (seqid, position) int32 pairs for the device
-        (TPU-friendly: avoids emulated 64-bit integer ops)."""
+        (32-bit keys for the device program)."""
         sid = (self.occurrences >> 32).astype(np.int32)
         pos = (self.occurrences & 0xFFFFFFFF).astype(np.int32)
         return sid, pos

@@ -179,7 +179,7 @@ def _iter_fastq(f: io.BufferedReader) -> Iterator[FastxRecord]:
 @dataclasses.dataclass
 class Reference:
     """A fully loaded reference, equivalent of the all-sequences batch
-    (src/sequence_batch.c:82-121) plus a TPU-friendly flat layout.
+    (src/sequence_batch.c:82-121) plus a flat layout for the device.
 
     `flat_codes` concatenates every chromosome's codes separated by
     `gap` sentinel bases (code 4) so windowed gathers near boundaries

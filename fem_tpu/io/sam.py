@@ -121,8 +121,8 @@ class SamWriter:
         self._buf.append(record)
         self._buf_bytes += len(record)
         # Byte-based flush threshold: a record may be one read's line or a
-        # whole batch's blob (the native emitter and the shadow-warm CPU
-        # path return per-batch blobs) — an item-count threshold held
+        # whole batch's blob (the native emitter returns per-batch
+        # blobs) — an item-count threshold held
         # megabytes in memory until close.
         if len(self._buf) >= 4096 or self._buf_bytes >= (1 << 20):
             self.flush()

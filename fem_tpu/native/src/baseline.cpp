@@ -1,7 +1,7 @@
 // fem_baseline — standalone CPU all-mapping short-read mapper.
 //
 // Purpose: (a) a fast differential oracle for large-scale testing of the
-// TPU engine (the original reference binary cannot be built here: its
+// device engine (the original reference binary cannot be built here: its
 // htslib submodule is not vendored), and (b) the measured CPU baseline for
 // bench.py's vs_baseline ratio. The mapping core lives in mapper_core.h,
 // shared with the engine's in-process fallback API (capi_mapper.cpp).

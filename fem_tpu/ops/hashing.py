@@ -3,7 +3,7 @@
 The reference hashes seeds with a scalar rolling loop
 (src/utils.h:83-117). With a fixed k, hash(i) is just a windowed base-4
 polynomial of the codes with ambiguous bases as 0, so a batch of reads
-hashes with k shifted adds on the VPU — no recurrence, no scan.
+hashes with k shifted adds — no recurrence, no scan.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ def reverse_complement(codes: jnp.ndarray, lengths: jnp.ndarray) -> jnp.ndarray:
     B, Lmax = codes.shape
     # Dense formulation: flip the padded row (pad lands at the front),
     # then left-rotate by the per-read pad width with a log-step barrel
-    # shift — all full-row selects. The obvious per-element
-    # take_along_axis gather is ~60x slower on TPU (docs/ROADMAP.md).
+    # shift — all full-row selects instead of a per-element
+    # take_along_axis gather.
     flipped = codes[:, ::-1]
     amt = (Lmax - lengths).astype(jnp.int32)  # left-rotation per row
     x = flipped

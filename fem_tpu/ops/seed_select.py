@@ -6,7 +6,7 @@ src/filter.c:3-43): for one seed group, pick e+1+a non-overlapping seeds
 via a (e+a+2) x (Ng - (e+1+a)*span + 2) DP with uint32-wrapping sums and a
 decision-matrix traceback. Ties prefer the horizontal move (skip the seed).
 
-TPU design: one DP *lane* per (read, strand, group). The frequencies each
+Device design: one DP *lane* per (read, strand, group). The frequencies each
 (row, column) cell needs are known statically, so they are pre-gathered
 into the scan inputs as contiguous rows of a transposed (NG, NL) table —
 no strided minor-axis loads inside the loop. The traceback exploits that
@@ -81,8 +81,8 @@ def select_qgrams(
     nc_lane = group_sizes - S * sl + 2  # (NL,)
     degenerate = nc_lane < 2
     final_col = jnp.clip(nc_lane - 1, 1, NC - 1)
-    # m_last: (NC-1, NL); per-lane result column via a select chain (the
-    # strided per-lane gather is slow on TPU).
+    # m_last: (NC-1, NL); per-lane result column via a select chain
+    # instead of a strided per-lane gather.
     min_total = m_last[0]
     for c in range(1, NC - 1):
         min_total = jnp.where(final_col - 1 == c, m_last[c], min_total)

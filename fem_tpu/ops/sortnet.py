@@ -1,12 +1,11 @@
 """Bitonic sorting network for the candidate filter's slab sorts.
 
-`lax.sort` on this TPU stack compiles to a fast program in isolation but
-to a pathological one inside the fused candidate pipeline (measured 28 ms
-for a (4096, 3, 64) two-key sort that costs 0.04 ms standalone — the
-sort's context changes XLA's layout/loop choices). A hand-rolled bitonic
-network is ordinary vectorized compare-exchange: log2(n)*(log2(n)+1)/2
-stages of reshape-swap + select over the minor axis, which XLA fuses with
-the surrounding producers/consumers like any elementwise chain.
+A hand-rolled bitonic network in place of `lax.sort` inside the fused
+candidate pipeline: ordinary vectorized compare-exchange,
+log2(n)*(log2(n)+1)/2 stages of reshape-swap + select over the minor
+axis, which XLA fuses with the surrounding producers/consumers like any
+elementwise chain. How it compares with `lax.sort` on the H100 is not
+measured.
 
 Semantics: ascending lexicographic by (key1, key2). Exchanges compare
 strictly, so equal keys never swap — with *equal payloads under equal

@@ -1,10 +1,10 @@
 """Device-side data structures.
 
-TPU-first layout decisions:
+Layout decisions:
   * 64-bit occurrence values (seqid << 32 | position, src/index.h) are split
-    into two int32 planes — TPUs emulate int64, and two-key lexicographic
-    `lax.sort` gives identical ordering to u64 comparison because in-chrom
-    positions never approach 2^31.
+    into two int32 planes — two-key lexicographic sorts give identical
+    ordering to u64 comparison because in-chrom positions never approach
+    2^31, and every key stays 32-bit.
   * The CSR lookup table stays a flat int32 HBM array with a precomputed
     4^k frequency table, making a frequency query one gather
     (src/index.h:22-28 semantics).
@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -33,11 +34,9 @@ class DeviceIndex(NamedTuple):
     # on the hot path)
     freq_table: jnp.ndarray  # (4^k,) int32 lookup[h+1]-lookup[h] (one gather per query)
     occ_rows: jnp.ndarray  # (Rs, 128) uint32 — (sid,pos) pairs, 64 per 512B
-    # super-row (8 logical 8-pair rows). Gather cost on this chip is per
-    # ROW and a 16-word-minor output wastes 7/8 of every (8,128) tile, so
-    # the slab fetch gathers full 128-word super-rows and extracts the
-    # 16-word logical row in registers (r3 tools/gather_law.py: same 491k
-    # row ids, (W,16) output 36.5 ms vs (W,128) 30.4 ms incl. RPC).
+    # super-row (8 logical 8-pair rows). The slab fetch gathers full
+    # 128-word super-rows and extracts the 16-word logical row with a
+    # select chain (whether this still pays on the H100 is not measured).
     ref_rows: jnp.ndarray  # (total/64, 16) uint32 — same bytes, 64B rows
     ref_offsets: jnp.ndarray  # (num_seqs,) int32 offsets into ref_flat
     ref_lengths: jnp.ndarray  # (num_seqs,) int32 chromosome lengths
@@ -53,9 +52,8 @@ class DeviceIndex(NamedTuple):
     own_end: jnp.ndarray | None = None  # (num_seqs,) int32
     halo_lo: jnp.ndarray | None = None  # (num_seqs,) int32
     # (4^k, 2) int32 rows [lookup[h], lookup[h+1]]: the selected-seed
-    # attribute fetch needs BOTH the CSR start and the run length; per-ROW
-    # gather cost (tools/gather_law.py) makes one 2-word row gather half
-    # the price of two element gathers.
+    # attribute fetch needs BOTH the CSR start and the run length, so one
+    # 2-word row gather replaces two element gathers.
     csr_rows: jnp.ndarray | None = None
 
 
@@ -76,15 +74,24 @@ def pack_occ_super(
     return occ_pairs.reshape(n_super, 128)
 
 
-def device_index_from_host(index: FemIndex, reference: Reference) -> DeviceIndex:
+def device_index_from_host(
+    index: FemIndex, reference: Reference, sharding=None
+) -> DeviceIndex:
+    """Upload the index. `sharding` (e.g. a replicated NamedSharding over
+    a data mesh) places every table; None puts them on the default
+    device."""
+    put = jnp.asarray if sharding is None else (
+        lambda x: jax.device_put(x, sharding)
+    )
     sid, pos = index.split_sid_pos()
     flat = reference.flat_codes
     padded = len(flat) + (-len(flat)) % _ROW_BYTES + _ROW_BYTES
     buf = np.full(padded, 4, np.uint8)
     buf[: len(flat)] = flat
-    # 64-byte rows viewed as little-endian u32 words: TPU element gathers
-    # are slow but row gathers are fast, so banded windows are fetched as
-    # 3 aligned row gathers + an in-register barrel shift (ops/verify.py).
+    # 64-byte rows viewed as little-endian u32 words: the plain verify
+    # path fetches banded windows as 3 aligned row gathers + a barrel
+    # shift (ops/verify.py); the verify kernel reads the same bytes by
+    # offset.
     rows = buf.view(np.uint32).reshape(-1, _ROW_WORDS)
     # Occurrence table as interleaved (sid, pos) u32 pairs, 8 pairs per
     # logical 64-byte row, stored as (Rs, 128) super-rows of 8 logical
@@ -95,15 +102,13 @@ def device_index_from_host(index: FemIndex, reference: Reference) -> DeviceIndex
     lookup_i32 = index.lookup.astype(np.int32)
     return DeviceIndex(
         lookup=None,  # csr_rows carries both CSR bounds (see field note)
-        freq_table=jnp.asarray(np.diff(lookup_i32)),
-        occ_rows=jnp.asarray(occ_rows),
-        ref_rows=jnp.asarray(rows),
-        ref_offsets=jnp.asarray(reference.offsets.astype(np.int32)),
-        ref_lengths=jnp.asarray(reference.lengths.astype(np.int32)),
-        num_occurrences=jnp.asarray(np.int32(index.num_occurrences)),
-        csr_rows=jnp.asarray(
-            np.stack([lookup_i32[:-1], lookup_i32[1:]], axis=1)
-        ),
+        freq_table=put(np.diff(lookup_i32)),
+        occ_rows=put(occ_rows),
+        ref_rows=put(rows),
+        ref_offsets=put(reference.offsets.astype(np.int32)),
+        ref_lengths=put(reference.lengths.astype(np.int32)),
+        num_occurrences=put(np.int32(index.num_occurrences)),
+        csr_rows=put(np.stack([lookup_i32[:-1], lookup_i32[1:]], axis=1)),
     )
 
 

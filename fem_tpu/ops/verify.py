@@ -5,16 +5,16 @@ bits, over pattern = reference window starting at the band start and
 text = read, with the final 2e-step band scan picking (min ED, first end
 position attaining it) (src/align.c:102-147 scalar, 149-277 8-lane SSE).
 
-TPU design: one (read, candidate) pair per vector lane; the per-step
-match bitvectors Eq are precomputed for the whole batch with 2e+1 shifted
-compares (no per-step Peq register file), then a single `lax.scan` runs
-the 12-op Myers recurrence on uint32 lanes. The 3e early-exit
-(src/align.c:128-130,247-252) is omitted: it only ever rejects candidates
-that the full run also rejects (band-start errors are monotonic in i and
-the final scan can lower them by at most 2e), so accepted results are
-identical. A Pallas TPU kernel implements the same contract
-(fem_tpu/ops/verify_pallas.py); this jnp version is the portable
-reference/fallback used in tests and on CPU.
+Plain XLA formulation: one (read, candidate) pair per vector element; the
+per-step match bitvectors Eq are precomputed for the whole batch with
+2e+1 shifted compares (no per-step Peq register file), then a single
+`lax.scan` runs the 12-op Myers recurrence on uint32 elements. The 3e
+early-exit (src/align.c:128-130,247-252) is omitted: it only ever rejects
+candidates that the full run also rejects (band-start errors are
+monotonic in i and the final scan can lower them by at most 2e), so
+accepted results are identical. A Pallas kernel for the GPU implements
+the same contract (fem_tpu/ops/verify_pallas.py); this version is the
+reference it is tested against and the path on every other platform.
 """
 
 from __future__ import annotations
@@ -43,11 +43,11 @@ def gather_windows(
     Out-of-range lanes (masked-out slots) read inter-chromosome sentinel
     gap bases, never a neighboring chromosome.
 
-    TPU note: a naive element gather of (V, W) bytes is ~60x slower than
-    row gathers on this hardware. Windows are fetched as ceil(W/64)+1
-    aligned 64-byte row gathers from the u32 row view, then realigned with
-    a log-step barrel shift over words and a per-lane byte extract — all
-    dense VPU ops.
+    Windows are fetched as ceil(W/64)+1 aligned 64-byte row gathers from
+    the u32 row view, then realigned with a log-step barrel shift over
+    words and a per-lane byte extract (a formulation chosen to avoid
+    per-byte element gathers; its cost on the H100 against a plain
+    element gather is not measured).
     """
     base = jnp.take(index.ref_offsets, jnp.clip(sid, 0, index.ref_offsets.shape[0] - 1))
     g = base + pos  # absolute byte offset into ref_flat

@@ -3,7 +3,7 @@
 The reference scales with N pthread workers over disjoint 10k-read batches
 sharing a read-only index, merging only per-thread counters at join
 (src/FEM_map.c:145,182-212, src/map.c) — zero inter-worker communication.
-The TPU-native equivalent is data parallelism over a `jax.sharding.Mesh`:
+The device equivalent is data parallelism over a `jax.sharding.Mesh`:
 reads shard across the `data` axis, the index is replicated per device,
 and the five MappingStats counters are `psum`s over the mesh. Per-shard
 verify slabs stay sharded; the host drains each shard's accepted hits.
@@ -38,7 +38,7 @@ def make_sharded_map_fn(
     mesh: Mesh,
     params: FilterParams,
     verify_cap_per_shard: int,
-    use_pallas: bool,
+    verify: str,
     accept_cap: int = 4096,
     axis: str = DATA_AXIS,
 ):
@@ -55,7 +55,7 @@ def make_sharded_map_fn(
         lb = packed_in[:, -4:].astype(jnp.int32)
         lengths = lb[:, 0] | (lb[:, 1] << 8) | (lb[:, 2] << 16) | (lb[:, 3] << 24)
         out = map_core(
-            index, codes, lengths, params, verify_cap_per_shard, use_pallas,
+            index, codes, lengths, params, verify_cap_per_shard, verify,
             accept_cap,
         )
         # Globalize accepted-hit lane ids: local lanes are [0, 2*Bloc) with

@@ -246,7 +246,7 @@ def make_index_sharded_map_fn(
     params: FilterParams,
     verify_cap_per_shard: int,
     accept_cap_per_shard: int,
-    use_pallas: bool,
+    verify: str,
     gather_rows: bool = False,
 ):
     """shard_map over a ('data', 'index') mesh: reads sharded on `data`,
@@ -256,7 +256,7 @@ def make_index_sharded_map_fn(
     shard packed segments all_gather over the index axis *inside* the
     program, so every device holds its row's complete hit set and any one
     host owning a device in the row can emit that row's reads without
-    host-side cross-process traffic (the hit merge rides ICI/DCN,
+    host-side cross-process traffic (the hit merge is a device collective,
     SURVEY.md §5.8). Lane ids then stay row-local ([0, 2*Bloc)) so a row
     segment unpacks exactly like a single-host (1 x n_ip) batch."""
     from fem_tpu.pipeline.engine import map_core, pack_outputs
@@ -286,7 +286,7 @@ def make_index_sharded_map_fn(
             csr_rows=csr_rows[0],
         )
         out = map_core(
-            index, codes, lengths, params, verify_cap_per_shard, use_pallas,
+            index, codes, lengths, params, verify_cap_per_shard, verify,
             accept_cap_per_shard, index_axis=INDEX_AXIS,
         )
         Bloc = codes.shape[0]
@@ -320,7 +320,7 @@ def make_index_sharded_map_fn(
         seg = pack_outputs(out)
         if gather_rows:
             # Row-complete results on every device of the row: one
-            # all_gather over the index axis (ICI/DCN), n_ip segments each
+            # all_gather over the index axis, n_ip segments each
             # (segments are (rows, 128) u32 tiles; keep that shape).
             seg = jax.lax.all_gather(seg, INDEX_AXIS, axis=0).reshape(
                 -1, seg.shape[-1]

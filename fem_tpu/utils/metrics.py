@@ -38,7 +38,13 @@ class PipelineMetrics:
     records: int = 0
     fallback_reads: int = 0  # exact-host-mapper reads (past the last tier)
     retried_reads: int = 0  # reads remapped at retry tiers >= 1
-    shadow_reads: int = 0  # reads CPU-mapped while the device warmed
+    # Which implementation each stage used: the host paths fall back to
+    # Python silently when the native build fails, so runs record it.
+    native_reader: bool = False
+    native_emitter: bool = False
+    native_mapper: bool = False
+    verify: str = ""  # resolve_verify's choice
+    platform: str = ""  # jax.devices()[0].platform
     wall_submit_s: float = 0.0
     wall_drain_s: float = 0.0
     wall_total_s: float = 0.0

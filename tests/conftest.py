@@ -1,23 +1,20 @@
 """Test configuration.
 
-Device tests run on a virtual 8-device CPU mesh so multi-chip sharding is
-exercised without TPU hardware (per SURVEY.md §4). Set FEM_TPU_TEST_TPU=1
-to run against real devices instead.
+Tests run on the CPU by default, on a virtual 8-device CPU mesh so
+multi-device sharding is exercised without accelerators (per SURVEY.md
+§4). Tests marked `gpu` need the card: they take the `gpu` fixture,
+which skips them without one, and run with
+`JAX_PLATFORMS=cuda python -m pytest -m gpu tests/`.
 """
 
 import os
 
-if not os.environ.get("FEM_TPU_TEST_TPU"):
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "xla_force_host_platform_device_count" not in flags:
-        os.environ["XLA_FLAGS"] = (
-            flags + " --xla_force_host_platform_device_count=8"
-        ).strip()
-    import jax
-
-    # Note: the JAX_PLATFORMS env var is overridden by TPU platform plugins;
-    # the config update below reliably forces the virtual CPU mesh.
-    jax.config.update("jax_platforms", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+_flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in _flags:
+    os.environ["XLA_FLAGS"] = (
+        _flags + " --xla_force_host_platform_device_count=8"
+    ).strip()
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -26,6 +23,23 @@ from fem_tpu import sim  # noqa: E402
 from fem_tpu.config import FemArgs  # noqa: E402
 from fem_tpu.index.build import build_index  # noqa: E402
 from fem_tpu.io import fastx  # noqa: E402
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU; skips without one"
+    )
+
+
+@pytest.fixture
+def gpu():
+    """The first JAX device when it is a GPU; skips the test otherwise."""
+    import jax
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip(f"needs a GPU; JAX's first device is {dev.platform!r}")
+    return dev
 
 
 @pytest.fixture(scope="session")

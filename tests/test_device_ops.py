@@ -122,27 +122,6 @@ def test_generate_candidates_matches_golden(world, default_args):
     assert fb.sum() == 0  # small genome: nothing should overflow
 
 
-def test_candidate_gather_variants_identical(world, default_args):
-    """The r5 gather reformulations (gather_pib: promise_in_bounds takes;
-    unsorted_slab: traceback-order chunk allocation with the last seed
-    found by argmax instead of a sort) must be bit-identical to the
-    baseline on every output field."""
-    seqs, ref, index, mapper, dindex, reads = world
-    params = FilterParams.from_args(default_args, 128, cap_occ=256, cap_cand=128)
-    codes, lengths = _pad_batch([r.seq for r in reads])
-    hashes = seed_hashes(codes, params.kmer_size)
-    amb = ambiguous_base_counts(codes, lengths, params.kmer_size)
-    base = generate_candidates(codes, lengths, hashes, amb, dindex, params)
-    var = generate_candidates(
-        codes, lengths, hashes, amb, dindex, params,
-        gather_pib=True, unsorted_slab=True,
-    )
-    for name, a, b in zip(base._fields, base, var):
-        np.testing.assert_array_equal(
-            np.asarray(a), np.asarray(b), err_msg=name
-        )
-
-
 def test_verify_matches_golden(world, default_args):
     seqs, ref, index, mapper, dindex, reads = world
     e = default_args.error_threshold

@@ -5,9 +5,9 @@ import numpy as np
 import pytest
 
 from fem_tpu import sim
-from fem_tpu.golden.model import GoldenMapper, MappingStats
+from fem_tpu.golden.model import GoldenMapper
 from fem_tpu.io.fastx import ReadBatch
-from fem_tpu.pipeline.engine import EngineConfig, MappingEngine
+from fem_tpu.pipeline.engine import EngineConfig, MappingEngine, resolve_verify
 
 
 def _batch_from_reads(reads):
@@ -104,50 +104,41 @@ def test_engine_repeat_read_all_mappings(engine_world):
     assert b"".join(recs).count(b"\n") >= 2  # both repeat copies reported
 
 
-def test_shadow_warm_stream_matches_golden(engine_world):
-    """shadow_warm: the stream head is CPU-mapped while the device warms;
-    records and counters stay exact and the switch-over loses nothing."""
-    import time
+def test_verify_choice_plain_on_cpu_kernel_refused(small_reference, small_index,
+                                                   default_args):
+    """One place chooses the verify implementation: the Pallas kernel on
+    a GPU, the plain path elsewhere; asking for the compiled kernel off
+    the GPU raises instead of falling back."""
+    assert resolve_verify(None, "gpu") == "kernel"
+    assert resolve_verify(None, "cpu") == "plain"
+    assert resolve_verify("interpret", "cpu") == "interpret"
+    with pytest.raises(ValueError, match="GPU only"):
+        resolve_verify("kernel", "cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        resolve_verify("pallas", "gpu")
+    _, ref = small_reference
+    engine = MappingEngine(default_args, ref, small_index,
+                           EngineConfig(batch_size=32))
+    assert engine.verify == "plain"
+    with pytest.raises(ValueError, match="GPU only"):
+        MappingEngine(default_args, ref, small_index,
+                      EngineConfig(batch_size=32, verify="kernel"))
 
-    seqs, engine, golden = engine_world
-    if engine._cpu_mapper is None:
-        import pytest
 
-        pytest.skip("native CPU mapper unavailable")
-    reads = sim.simulate_reads(seqs, 256, read_length=100, max_errors=2,
-                               seed=77)
-    batches = [_batch_from_reads(reads[i : i + 64]) for i in range(0, 256, 64)]
-    grecs, gstats = golden.map_reads(
-        [r.name for r in reads], [r.seq for r in reads],
-        [r.qual for r in reads],
+def test_engine_with_interpreted_kernel_matches_golden(
+        small_reference, small_index, default_args):
+    """The verify kernel inside the full map program (Pallas interpreter
+    on the CPU) gives the golden oracle's records and counters."""
+    seqs, ref = small_reference
+    engine = MappingEngine(
+        default_args, ref, small_index,
+        EngineConfig(batch_size=32, cap_occ=128, cap_cand=64,
+                     verify_per_read=8, verify="interpret"),
     )
-
-    # Force a slow warm so at least one batch takes the CPU path even on
-    # fast CPU compiles (the warm thread gates on _fn_for).
-    engine.shadow_reads = 0
-    real_fn_for = engine._fn_for
-
-    def slow_fn_for(*a, **k):
-        time.sleep(1.0)
-        return real_fn_for(*a, **k)
-
-    engine._fn_for = slow_fn_for
-    engine._on_tpu = True  # take the threaded warm path on the CPU backend
-    try:
-        recs = []
-        total = MappingStats()
-        for r, st in engine.map_stream(iter(batches), shadow_warm=True):
-            recs.extend(r)
-            total += st
-    finally:
-        engine._fn_for = real_fn_for
-        engine._on_tpu = False
-    assert engine.shadow_reads > 0, "no batch took the CPU shadow path"
-    assert sorted(b"".join(recs).split(b"\n")) == sorted(
-        b"".join(grecs).split(b"\n")
-    )
-    assert total.num_reads == gstats.num_reads
-    assert total.num_mappings == gstats.num_mappings
-    assert total.num_candidates == gstats.num_candidates
-    assert engine.consumed_reads == 256
-    assert engine.watermark_reads >= engine.shadow_reads
+    golden = GoldenMapper(default_args, ref, small_index)
+    reads = sim.simulate_reads(seqs, 32, read_length=100, max_errors=2, seed=41)
+    batch = _batch_from_reads(reads)
+    recs, stats = engine.map_batch(batch)
+    grecs, gstats = golden.map_reads(batch.names, batch.seqs, batch.quals)
+    assert b"".join(recs) == b"".join(grecs)
+    assert stats.__dict__ == gstats.__dict__

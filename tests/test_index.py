@@ -81,7 +81,7 @@ def test_split_sid_pos(small_index):
 
 def test_u32_csr_guard_points_at_plan():
     """The u32 CSR ceiling fails loudly and points at the recorded
-    >u32 plan in docs/SCALE.md (VERDICT r3 item 8)."""
+    >u32 plan in docs/SCALE.md."""
     import os
 
     import pytest

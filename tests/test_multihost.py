@@ -111,12 +111,11 @@ def test_two_host_map_equals_single_host(workdir, capsys):
     assert host0_counters == single_counters
 
 
-def test_worker_processes_t2(workdir, capsys, monkeypatch):
-    """`fem map -t 2` fans out to 2 worker processes sharing the machine's
-    devices (the reference's pthread workers as processes); the merged SAM
-    record set and counters equal the -t 1 run."""
+def test_threads_t2_single_process(workdir, capsys, monkeypatch):
+    """`fem map -t 2` stays in one process (the device belongs to one JAX
+    process); -t sets host threads only. Records and counters equal the
+    -t 1 run (the reference's t>1 contract: record-set equality)."""
     d = workdir
-    monkeypatch.setenv("FEM_TPU_PLATFORM", "cpu")
     base = [
         "map", "-e", "2", "-a", "1",
         "--ref", str(d / "ref.fa"), "--index", str(d / "ref.index"),
@@ -124,9 +123,15 @@ def test_worker_processes_t2(workdir, capsys, monkeypatch):
     ]
     assert cli.main(base + ["-o", str(d / "t1.sam"), "-t", "1"]) == 0
     t1_counters = _counters(capsys.readouterr().err)
+
+    def no_child(*a, **k):
+        raise AssertionError("fem map -t 2 started a child process")
+
+    monkeypatch.setattr(subprocess, "Popen", no_child)
     assert cli.main(base + ["-o", str(d / "t2.sam"), "-t", "2"]) == 0
     t2_counters = _counters(capsys.readouterr().err)
     assert _records(str(d / "t2.sam")) == _records(str(d / "t1.sam"))
     assert t2_counters == t1_counters
+    assert "FEM_TPU_EMIT_THREADS" not in os.environ  # restored after the run
     with open(str(d / "t2.sam"), "rb") as f:
-        assert f.readline().startswith(b"@SQ"), "merged shard keeps the header"
+        assert f.readline().startswith(b"@SQ"), "SAM keeps the header"

@@ -164,3 +164,29 @@ def test_tsan_stress():
     res = subprocess.run([binary], capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-4000:]
     assert "tsan_stress ok" in res.stdout
+
+
+def test_artifact_built_for_another_host_is_not_loaded(monkeypatch, tmp_path):
+    """Native artifacts are keyed by the host CPU: a library built on
+    another machine (other model/feature flags) is never returned here;
+    this host compiles its own, then reuses it."""
+    from fem_tpu.native import build
+
+    calls = []
+
+    def fake_compile(cmd, **_):
+        out = cmd[cmd.index("-o") + 1]
+        with open(out, "w") as f:
+            f.write(build.cpu_id())
+        calls.append(cmd)
+
+    monkeypatch.setattr(build, "_BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(build.subprocess, "run", fake_compile)
+    monkeypatch.setattr(build, "cpu_id", lambda: "other host: avx512f")
+    foreign = build.build_native()
+    monkeypatch.setattr(build, "cpu_id", lambda: "this host: avx2")
+    mine = build.build_native()
+    assert mine != foreign and len(calls) == 2
+    with open(mine) as f:
+        assert f.read() == "this host: avx2"
+    assert build.build_native() == mine and len(calls) == 2

@@ -1,12 +1,16 @@
 """Differential tests against the ACTUAL reference FEM binary.
 
-The reference's htslib submodule is not vendored (/root/reference/extern
-is empty), so refbuild/ compiles /root/reference/src unmodified against a
+The reference's sources are not part of this repository and its htslib
+submodule is not vendored, so refbuild/build.sh compiles the reference's
+src/ unmodified (from the checkout FEM_REFERENCE_DIR names) against a
 minimal text-SAM htslib stub (refbuild/htslib_stub/) covering exactly the
 symbols FEM uses (src/output_queue.c:17-19,83,114, src/align.c:546-632).
 This closes SURVEY.md §4's differential contract: fem_tpu's index files,
 SAM output, and all five MappingStats counters are asserted byte-equal /
 equal to the reference binary itself — not just to the golden oracle.
+
+The tests are opt-in: without FEM_REFERENCE_DIR they skip, and the skip
+reason is the build script's own message.
 """
 
 import os
@@ -25,21 +29,20 @@ from fem_tpu.io.sam import sam_header_text
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def build_reference() -> str | None:
-    try:
-        out = subprocess.run(
-            [os.path.join(REPO, "refbuild", "build.sh")],
-            check=True, capture_output=True, text=True,
-        )
-        return out.stdout.strip().splitlines()[-1]
-    except Exception:  # pragma: no cover
-        return None
+def build_reference() -> tuple[str | None, str]:
+    """(the binary's path, "") or (None, why it was not built)."""
+    out = subprocess.run(
+        [os.path.join(REPO, "refbuild", "build.sh")],
+        capture_output=True, text=True,
+    )
+    if out.returncode != 0:
+        why = out.stderr.strip().splitlines()[-1:] or [f"rc={out.returncode}"]
+        return None, f"reference binary not built: {why[0]}"
+    return out.stdout.strip().splitlines()[-1], ""
 
 
-BIN = build_reference()
-pytestmark = pytest.mark.skipif(
-    BIN is None, reason="reference binary build failed"
-)
+BIN, WHY = build_reference()
+pytestmark = pytest.mark.skipif(BIN is None, reason=WHY)
 
 
 def parse_counters(stderr: str) -> dict:

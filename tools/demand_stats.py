@@ -1,9 +1,8 @@
 """Measure the candidate filter's real slab demand distributions.
 
-The r2 verdict's core finding: the padded per-(read, strand, group)
-occurrence slab uses ~9% of its slots on real data — the whole gap to
-"matching-or-beating" CPU. This tool quantifies exactly what the device
-program must provision, on the bench workload (46 Mb / 30%-repeat genome,
+The padded per-(read, strand, group) occurrence slab is mostly empty on
+real data. This tool quantifies exactly what the device program must
+provision, on the bench workload (46 Mb / 30%-repeat genome,
 100 bp reads with the HONEST max_errors=e budget):
 
   * per-(lane, group) ALIGNED occurrence-slot demand (each selected
@@ -13,7 +12,7 @@ program must provision, on the bench workload (46 Mb / 30%-repeat genome,
   * per-read total candidate count (bounds verify_per_read);
   * per-read accepted-mapping count (bounds accept_per_read).
 
-Runs entirely on CPU (no TPU compiles). Output: percentile tables +
+Runs entirely on CPU (no device compiles). Output: percentile tables +
 recommended tier-0 caps and retry-ladder rungs.
 
 Usage: python tools/demand_stats.py [--e 5] [--reads 4096]

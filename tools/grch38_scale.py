@@ -1,5 +1,5 @@
-"""GRCh38-scale memory validation (VERDICT r1 item 4 / SURVEY §7 hard part
-"index memory on device").
+"""GRCh38-scale memory validation (SURVEY §7 hard part "index memory on
+device").
 
 Synthesizes a ~3 Gb, 24-chromosome genome (GRCh38-like length profile,
 repeat content via segment re-insertion), builds the full k=12/step=3
